@@ -1,18 +1,18 @@
-"""multiviewstitch_tpu — a TPU-native multi-view RGB-D reconstruction & stitching framework.
+"""multiviewstitch_tpu — multi-view RGB-D reconstruction & stitching in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 zjuzly/MultiViewStitch (reference: /root/reference/MultiViewStitch):
 depth-consistency filtering, virtual-view synthesis, feature detection and
 matching, similarity-transform (SRT) solving, view-graph pose chaining and
 bundle adjustment, multi-frame point sampling and fusion, surface
 reconstruction, template-body alignment, embedded-deformation (ARAP)
 non-rigid fitting, and model-to-depth re-rendering — all as batched,
-jitted/Pallas compute over device meshes rather than serial per-pixel C++.
+jitted compute over device meshes rather than serial per-pixel C++.
 
 Package layout:
   core/      batched pinhole cameras, similarity transforms, view graph
   io/        .act / .raw / .obj / .npts parsers + stage checkpoint manifest
-  ops/       jit + Pallas kernels (consistency, warp, features, match,
+  ops/       jitted ops (consistency, warp, features, match,
              filters, meshing, rasterizer, knn, tsdf fusion)
   solvers/   Kabsch/RANSAC SRT, PCA/plane fits, bundle adjustment,
              embedded-deformation Gauss-Newton, Poisson/CG solves

@@ -332,6 +332,8 @@ def cmd_pipeline(args) -> int:
 
 
 def cmd_bench(args) -> int:
+    """Run bench.py in a child process. This process has opened no JAX
+    backend, so the child is the only one on the card."""
     import subprocess
     return subprocess.call([sys.executable,
                             os.path.join(os.path.dirname(
@@ -396,6 +398,8 @@ def main(argv=None) -> int:
     b.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
+    from .utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -1,6 +1,6 @@
 """Batched pinhole cameras as a structure-of-arrays pytree.
 
-TPU-native re-design of the reference's scalar ``Camera`` class
+Re-design of the reference's scalar ``Camera`` class
 (``Camera/Camera.{h,cpp}``). The reference stores one Eigen K/R/t per camera
 and converts a single pixel at a time (``Camera.cpp:40-72``); here a whole
 rig is one pytree of stacked arrays (``K: [N,3,3]``, ``R: [N,3,3]``,
@@ -77,7 +77,8 @@ class CameraBatch:
 
     def centers(self):
         """Camera centers in world coordinates: C = -R^T t."""
-        return -jnp.einsum("...ji,...j->...i", self.R, self.t)
+        return -jnp.einsum("...ji,...j->...i", self.R, self.t,
+                           precision="highest")
 
     def view_rays(self):
         """Forward (+z) viewing direction in world coords = R^T e_z =
@@ -105,11 +106,10 @@ class CameraBatch:
 # ---------------------------------------------------------------------------
 
 def _rot3(R, pts, transpose=False):
-    """[...,3,3] x [...,3] -> [...,3] as EXPLICIT elementwise math: a
-    3-wide einsum/dot_general lowers to an MXU matmul whose 3-element
-    contraction pads to the full systolic depth (~0.05% utilization —
-    measured ~30 ms for one VGA-sequence consistency pass, i.e. the whole
-    front-end budget); nine multiply-adds on the VPU are ~free."""
+    """[...,3,3] x [...,3] -> [...,3] as EXPLICIT elementwise math: nine
+    multiply-adds fuse with their neighbors and run in full f32, where a
+    3-wide einsum/dot_general becomes a matmul with a 3-element contraction
+    (and, on the GPU, a TF32 product unless its precision is pinned)."""
     x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
     if transpose:
         return jnp.stack([

@@ -56,19 +56,20 @@ def apply(T: Similarity, pts):
     """Apply x -> s R x + t. T's batch dims must broadcast against the
     leading dims of pts [...,3] (e.g. unbatched T with [N,3] points, or
     [K]-batched T with [K,N,3] points after expanding T to [K,1])."""
-    rotated = jnp.einsum("...ij,...j->...i", T.R, pts)
+    rotated = jnp.einsum("...ij,...j->...i", T.R, pts, precision="highest")
     return jnp.asarray(T.s)[..., None] * rotated + T.t
 
 
 def apply_points(T: Similarity, pts):
     """Apply a single (unbatched) similarity to points [N,3] (or [...,3])."""
-    return T.s * jnp.einsum("ij,...j->...i", T.R, pts) + T.t
+    return T.s * jnp.einsum("ij,...j->...i", T.R, pts,
+                            precision="highest") + T.t
 
 
 def rotate_normals(T: Similarity, normals):
     """Transform unit normals (rotation only; uniform scale preserves them).
     Matches the reference's normal handling at Processor.cpp:1024-1027."""
-    return jnp.einsum("ij,...j->...i", T.R, normals)
+    return jnp.einsum("ij,...j->...i", T.R, normals, precision="highest")
 
 
 def compose(A: Similarity, B: Similarity) -> Similarity:
@@ -79,8 +80,9 @@ def compose(A: Similarity, B: Similarity) -> Similarity:
       s = sA*sB, R = RA@RB, t = sA*RA@tB + tA.
     """
     s = A.s * B.s
-    R = jnp.einsum("...ij,...jk->...ik", A.R, B.R)
-    t = (A.s[..., None] * jnp.einsum("...ij,...j->...i", A.R, B.t)) + A.t
+    R = jnp.einsum("...ij,...jk->...ik", A.R, B.R, precision="highest")
+    t = (A.s[..., None] * jnp.einsum("...ij,...j->...i", A.R, B.t,
+                                     precision="highest")) + A.t
     return Similarity(s, R, t)
 
 
@@ -89,7 +91,8 @@ def inverse(T: Similarity) -> Similarity:
     inverse map p_k = 1/s_k R_k^T (p - t_k) (Processor.cpp:1171-1189)."""
     s = 1.0 / T.s
     R = jnp.swapaxes(T.R, -1, -2)
-    t = -s[..., None] * jnp.einsum("...ij,...j->...i", R, T.t)
+    t = -s[..., None] * jnp.einsum("...ij,...j->...i", R, T.t,
+                                   precision="highest")
     return Similarity(s, R, t)
 
 
@@ -105,8 +108,10 @@ def chain(transforms: Similarity) -> Similarity:
         # After reversal, scan element a (earlier in scan order) is the
         # *later* pipeline transform, i.e. the outer function: a ∘ b.
         return (a[0] * b[0],
-                jnp.einsum("...ij,...jk->...ik", a[1], b[1]),
-                a[0][..., None] * jnp.einsum("...ij,...j->...i", a[1], b[2]) + a[2])
+                jnp.einsum("...ij,...jk->...ik", a[1], b[1],
+                           precision="highest"),
+                a[0][..., None] * jnp.einsum("...ij,...j->...i", a[1], b[2],
+                                             precision="highest") + a[2])
 
     # cumulative_k = T_{K-1} ∘ ... ∘ T_k ; compute via reverse scan
     s, R, t = transforms.s, transforms.R, transforms.t

@@ -32,11 +32,17 @@ def _load_lib() -> Optional[ctypes.CDLL]:
     _TRIED = True
     so = os.path.join(_repo_root(), "native", "libmvs_io.so")
     if not os.path.exists(so):
+        # build under a private name, then rename into place: concurrent
+        # processes (parallel test workers) never load a half-written file
         build = os.path.join(_repo_root(), "native", "build.sh")
+        tmp = f"{so}.{os.getpid()}.tmp"
         try:
-            subprocess.run(["sh", build], check=True, capture_output=True,
-                           timeout=120)
+            subprocess.run(["sh", build, tmp], check=True,
+                           capture_output=True, timeout=120)
+            os.replace(tmp, so)
         except (subprocess.SubprocessError, OSError):
+            if os.path.exists(tmp):
+                os.remove(tmp)
             return None
     try:
         lib = ctypes.CDLL(so)

@@ -1,10 +1,10 @@
-"""Body-part labels: template part lists + 1-NN label transfer on the MXU.
+"""Body-part labels: template part lists + 1-NN label transfer by matmul.
 
 Re-design of PartRecognition/PartRecognition.{h,cpp}: the 16-part enum
 (PartRecognition.h:13-30), the ``Name=i;j;k;...`` part-file parser
 (LoadParts, PartRecognition.cpp:7-48, data format Template/part/parts), and
 PartRecog's per-point FLANN kd-tree 1-NN (PartRecognition.cpp:50-77) —
-replaced by chunked brute-force min-distance on the MXU (distance matrix =
+replaced by chunked brute-force min-distance (distance matrix =
 one matmul per chunk), which is exact (FLANN is approximate) and batched.
 """
 
@@ -86,8 +86,8 @@ def _nn_chunk(query, ref):
     """Nearest ref index for each query point; distance matrix via matmul."""
     # |q - r|^2 = |q|^2 - 2 q.r + |r|^2 ; argmin over r
     # K=3 contraction: full-precision operands are free here, and the
-    # |q|^2-2qr+|r|^2 cancellation amplifies bf16 operand rounding enough
-    # to flip close 1-NN decisions on TPU
+    # |q|^2-2qr+|r|^2 cancellation amplifies reduced-precision (bf16/TF32)
+    # operand rounding enough to flip close 1-NN decisions
     qr = jnp.dot(query, ref.T, preferred_element_type=jnp.float32,
                  precision=jax.lax.Precision.HIGHEST)
     d2 = (jnp.sum(query * query, -1, keepdims=True) - 2.0 * qr +

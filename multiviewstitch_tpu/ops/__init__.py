@@ -1,4 +1,4 @@
-"""Jitted/Pallas compute kernels (the framework's device-side hot path)."""
+"""Jitted compute ops (the framework's device-side hot path)."""
 
 from .consistency import check_consistency, consistency_stats
 from .view_synth import synthesize_views, view_angles
@@ -13,7 +13,6 @@ from .point_sampling import (sample_oriented_points, visibility_filter,
 from .tsdf import fuse_tsdf, surface_nets, reconstruct, TSDF, SurfaceMesh
 from .poisson import reconstruct_poisson, poisson_field
 from .depth_refine import refine_depth
-from .gather2d import gather_image, gather_image_banded, gather_batched
 from .segmentation import (segment_foreground, foreground_from_disparity,
                            trim_mesh_by_all_cameras)
 from .simplify import simplify_mesh
@@ -31,7 +30,6 @@ __all__ = [
     "fuse_tsdf", "surface_nets", "reconstruct", "TSDF", "SurfaceMesh",
     "reconstruct_poisson", "poisson_field",
     "refine_depth",
-    "gather_image", "gather_image_banded", "gather_batched",
     "segment_foreground", "foreground_from_disparity",
     "trim_mesh_by_all_cameras",
     "simplify_mesh",

@@ -84,7 +84,7 @@ def gap_filter(uv1, uv2, mask, *, min_gap_sq: jnp.ndarray | float,
     weak #6): instead of one device-loop step per match (up to 2048
     dependent steps, each broadcasting against the full match list), the
     loop runs per CHUNK of ``chunk`` matches — the chunk-vs-all conflict
-    matrix is one batched VPU op, the conflict test against the kept
+    matrix is one batched elementwise op, the conflict test against the kept
     prefix is one masked reduction, and the within-chunk greedy recurrence
     unrolls into ``chunk`` tiny [chunk]-wide steps with no loop overhead.
     Accepted sets are bit-identical to the per-match loop (the prefix a

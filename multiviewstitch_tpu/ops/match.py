@@ -1,4 +1,4 @@
-"""Descriptor matching on the MXU.
+"""Descriptor matching as one matmul per view pair.
 
 Replacement for the reference's SiftMatchGPU wrapper (MatchFeature,
 FeatureProc.cpp:77-130): descriptor distances become one [K1,128]x[128,K2]
@@ -44,8 +44,10 @@ def match_descriptors(
     duplicate keypoints (the back-pointer lands on the twin copy) and costs
     measurable recall — the downstream dedup/SSD/gap/RANSAC cascade is the
     reference's outlier defense, not the matcher."""
-    # dot products on the MXU; invalid columns forced to -1 (max distance)
-    dots = jnp.dot(d1, d2.T, preferred_element_type=jnp.float32)
+    # dot products; invalid columns forced to -1 (max distance). HIGHEST:
+    # a TF32 product (~3 decimal digits) would move the ratio test
+    dots = jnp.dot(d1, d2.T, precision=jax.lax.Precision.HIGHEST,
+                   preferred_element_type=jnp.float32)
     dots = jnp.where(v1[:, None] & v2[None, :], dots, -1.0)
 
     top2, top2_idx = jax.lax.top_k(dots, 2)          # [K1,2]

@@ -6,7 +6,7 @@ up to two triangles per quad when the three corner disparity deltas are below
 ``smooth_thres*(max_dsp-min_dsp)/100``. Here both passes are one jitted op:
 vertex ids come from an exclusive cumsum over the validity mask and triangles
 from vectorized quad-corner tests; compaction uses static-capacity scatters
-(TPU-friendly fixed shapes) with counts returned alongside.
+(fixed shapes for jit) with counts returned alongside.
 
 Vertex order (row-major over valid pixels) and triangle vertex order match
 the reference exactly, so OBJ artifacts diff cleanly.

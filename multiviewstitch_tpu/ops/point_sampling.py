@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 
 from ..core.cameras import CameraBatch, project, unproject, pixel_grid
+from .consistency import gather_frames
 
 
 class OrientedPoints(NamedTuple):
@@ -62,8 +63,8 @@ def sample_oriented_points(
 
     # everything below the (cheap, fusable) unprojection runs on the
     # STRIDED sample grid only: votes/normals for pixels the stride would
-    # discard are never computed (the all-pixels-then-subsample layout
-    # cost 17.8 ms/call at 8x VGA on the v5e; identical results)
+    # discard are never computed (identical results to computing every
+    # pixel and subsampling)
     sub = (slice(None), slice(None, None, sample_radius),
            slice(None, None, sample_radius))
     s_h = len(range(0, h, sample_radius))
@@ -110,16 +111,7 @@ def sample_oriented_points(
             vn = jnp.floor(uvn[..., 1] + 0.5).astype(jnp.int32)
             inb = (un >= 0) & (un <= w - 1) & (vn >= 0) & (vn <= h - 1) & \
                   (zn > 0)
-            uc = jnp.clip(un, 0, w - 1)
-            vc = jnp.clip(vn, 0, h - 1)
-            from .consistency import _gather_px_frames
-            # band window covers the strided band's source-row spread
-            # (8 output rows x stride ~ 16 at stride 2, measured ~18 with
-            # reprojection jitter) plus margin
-            dn, gok = _gather_px_frames(
-                disparity[nbr], vc, uc,
-                window_rows=min(8 * sample_radius + 8, 48))
-            inb = inb & gok
+            dn = gather_frames(disparity[nbr], vn, un)
             # the point's disparity as seen from the neighbor camera
             d_proj = jnp.where(zn > 1e-12, 1.0 / jnp.maximum(zn, 1e-12), 0.0)
             agree = inb & (jnp.abs(dn - d_proj) <= dsp_err) & \

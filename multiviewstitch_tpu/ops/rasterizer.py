@@ -8,12 +8,9 @@ GPU context; here rasterization is fully on-device ("Model2Depth
 re-rendering fused on-device" per BASELINE's north star):
 
   1. project vertices through the pinhole camera (continuous pixel coords)
-  2. the small-face bulk (bbox < `tile`) renders SCATTER-FREE through a
-     sort-binned tile pass (_raster_tiled): one device sort bins faces to
-     ts x ts image tiles, row-gathers pack each tile's face records, and
-     the z-test is a dense masked max over the tile's pixels on the VPU
-     — TPU scatters run on the scalar path at ~6 ns/element and were 77
-     of the round-3 80 ms/frame
+  2. the small-face bulk (bbox < `tile`) renders through a tile pass
+     (_raster_tiled): each face evaluates coverage over the ts x ts image
+     tiles it touches and the z-test is one row scatter-max per tile
   3. bigger faces walk a compacted scatter-max tile ladder with spill
      chaining; edge-function coverage + screen-space linear interpolation
      of 1/z everywhere (exact perspective-correct disparity).
@@ -163,21 +160,18 @@ def _raster_pass_fullframe(uvz, faces, face_ok, h, w, zbuf, chunk):
 
 def _raster_tiled(uvz, faces, face_ok, h, w, zbuf_flat, *,
                   ts: int = 16, chunk: int = 8192):
-    """Tile-local rasterization for faces with bbox < ts (round 4).
+    """Tile-local rasterization for faces with bbox < ts.
 
-    Replaces the per-face scatter-max sweep for the small-face bulk. TPU
-    scatter-max of scalar PIXELS costs ~6 ns/element on the scalar unit
-    (~77 of the round-3 80 ms/frame: every face paid its pass's full
-    tile^2 slots), but on-chip probes show ROW scatters (aligned minor
-    dim) and dense elementwise eval are ~free. So: each face emits its
+    Replaces the per-face scatter-max sweep over single pixels for the
+    small-face bulk with row scatters: each face emits its
     <=4 touched ts x ts image tiles (a face with bbox < ts overlaps at
     most 2x2 tiles); each (face, tile) candidate evaluates edge-function
     coverage + disparity over that tile's ts*ts pixel block and
     scatter-maxes ONE [ts*ts]-lane row into a [T+1, ts*ts] tile buffer
     (duplicate tile rows combine by the scatter's max). No sort, no
     per-tile capacity, no spill: work scales with face count, not tile
-    occupancy, so silhouette-dense tiles (measured 2.7k faces/tile on
-    the 100k-face sphere) cost the same as uniform ones. Candidates stay
+    occupancy, so silhouette-dense tiles (2.7k faces/tile on the
+    100k-face sphere) cost the same as uniform ones. Candidates stay
     in face order, so face records need no gather at all.
 
     Returns (zbuf_flat updated via elementwise max, spill_mask [F] —
@@ -262,8 +256,7 @@ def _raster_tiled(uvz, faces, face_ok, h, w, zbuf_flat, *,
                    (px <= w - 1) & (py <= h - 1))
             rows.append(jnp.minimum(tid, T))
             vals.append(jnp.where(okp, disp, 0.0))
-        # one row scatter for all four candidate slots (round 5: four
-        # separate scatter ops per scan step paid four op overheads)
+        # one row scatter for all four candidate slots
         zb = zb.at[jnp.concatenate(rows)].max(
             jnp.concatenate(vals), mode="drop")
         return zb, None
@@ -277,20 +270,9 @@ def _raster_tiled(uvz, faces, face_ok, h, w, zbuf_flat, *,
     return zbuf_flat, jnp.zeros((nf,), bool)
 
 
-def _auto_impl() -> str:
-    """The XLA tile passes stay production on every backend (round-5
-    v5e A/B at VGA@100k faces, quiet host, one process: xla 12.6 ms vs
-    pallas face-order 15.7 vs pallas sorted-strips 18.8 — after gating
-    the ladder compactions the XLA path's scatter cost is no longer the
-    bottleneck, while the Pallas kernels pay either ~120 cycles/face of
-    sequential loop+RMW overhead or 12 ms of XLA-side sort+gather prep;
-    see ops/pallas_raster.py for the measured design space)."""
-    return "xla"
-
-
 @partial(jax.jit, static_argnames=("height", "width", "tile", "tile_large",
                                    "chunk", "znear", "overflow_capacity",
-                                   "mid_capacity", "impl"))
+                                   "mid_capacity"))
 def render_disparity(
     vertices: jnp.ndarray,     # [V,3] world-space
     faces: jnp.ndarray,        # [F,3] int32 (padding rows: any id, masked)
@@ -305,7 +287,6 @@ def render_disparity(
     znear: float = 1e-4,
     overflow_capacity: int = 256,
     mid_capacity: int = 16384,
-    impl: str | None = None,   # None=auto, "pallas", "xla"
 ) -> RenderResult:
     pc = world_to_cam(cam, vertices)                       # [V,3]
     z = pc[:, 2]
@@ -328,43 +309,22 @@ def render_disparity(
           jnp.clip(jnp.min(va, axis=1), 0, height - 1))
     bb = jnp.maximum(bw, bh)
 
-    # Round 4: the small-face BULK renders through the sort-binned tiled
-    # pass (_raster_tiled — no scatters; on-chip probes: sort/row-gather/
-    # dense-eval are ~free while scatter-max costs ~6 ns/element, which
-    # made the old t8 base sweep 77 of the 80 ms/frame). Larger classes
-    # keep the round-3 compacted scatter ladder with SPILL CHAINING:
-    # every class is COMPACTED to a fixed capacity behind a lax.cond (an
+    # The small-face bulk renders through the tiled pass (_raster_tiled:
+    # one row scatter per candidate tile, no per-pixel scatters). Larger
+    # classes walk a compacted scatter ladder with SPILL CHAINING: every
+    # class is COMPACTED to a fixed capacity behind a lax.cond (an
     # all-small mesh pays nothing), a class that overflows spills upward
     # (a t-tile pass is exact for any face with bbox < t-1), and only the
     # final full-frame pass counts drops. Tile-pass capacity overflows
     # spill into the first ladder rung the same way.
     zbuf = jnp.zeros((height * width + 1,), jnp.float32)
     base = max(tile, 8)
-    if impl is None:
-        impl = _auto_impl()
-    if impl in ("pallas", "pallas_strips"):
-        # round 5: the whole bbox < base-1 bulk renders through a Pallas
-        # kernel; the scatter ladder below keeps the >= base-1 tail.
-        # "pallas" = face-order kernel with the whole image resident in
-        # VMEM (no sort, no gather); "pallas_strips" = the sorted-
-        # candidate per-strip variant kept for A/B (its XLA-side sort +
-        # record gather measured 12.5 of its 16.5 ms/frame).
-        from .pallas_raster import raster_faces, raster_strips
-        kern = raster_faces if impl == "pallas" else raster_strips
-        img, _ = kern(
-            uvz, f, ok, h=height, w=width, cls=base - 1,
-            interpret=jax.default_backend() != "tpu")
-        zbuf = zbuf.at[:height * width].max(img.ravel())
-        spill0 = jnp.zeros((f.shape[0],), bool)
-        spill_mid = spill0
-    else:
-        # ts=8 tiles for the finest class (bbox < 7): 64-pixel blocks per
-        # candidate, 4x less dense-eval work than ts=16 (A/B on the 100k
-        # 3-px-face sphere: 10.3 vs 14.5 ms). The mid class (7 <= bbox <
-        # base-1) runs a COMPACTED, cond-gated ts=base tiled pass below,
-        # so an all-small mesh pays nothing for it.
-        zbuf, spill0 = _raster_tiled(uvz, f, ok & (bb < 7), height,
-                                     width, zbuf, ts=8, chunk=16384)
+    # ts=8 tiles for the finest class (bbox < 7): 64-pixel blocks per
+    # candidate, 4x less dense-eval work than ts=16. The mid class
+    # (7 <= bbox < base-1) runs a COMPACTED, cond-gated ts=base tiled pass
+    # below, so an all-small mesh pays nothing for it.
+    zbuf, spill0 = _raster_tiled(uvz, f, ok & (bb < 7), height,
+                                 width, zbuf, ts=8, chunk=16384)
 
     def compact(sel, cap):
         pos = jnp.cumsum(sel.astype(jnp.int32)) - 1
@@ -376,11 +336,9 @@ def render_disparity(
         return f[buf[:cap]], filled[:cap], spilled
 
     def gated_pass(zbuf, sel, cap, run):
-        # the COMPACTION lives inside the cond too (round 5): its cumsum
-        # + two element scatters over [F] run on the scalar path and cost
-        # ~1.5 ms/rung at 100k faces — an empty class must cost one
-        # reduction, not a compaction (the ladder scaffolding was ~6 of
-        # the 22.6 ms in the first Pallas A/B)
+        # the COMPACTION lives inside the cond too: its cumsum + two
+        # element scatters over [F] are not free, and an empty class must
+        # cost one reduction, not a compaction
         def go(zb):
             fsel, oksel, spilled = compact(sel, cap)
             return run(zb, fsel, oksel), spilled
@@ -390,15 +348,13 @@ def render_disparity(
 
         return jax.lax.cond(sel.any(), go, skip, zbuf)
 
-    if impl not in ("pallas", "pallas_strips"):
-        # mid class through the tiled pass too (compacted + gated);
-        # overflow beyond the cap spills to the scatter ladder like any
-        # other class
-        mid_cap = min(f.shape[0], mid_capacity)
-        zbuf, spill_mid = gated_pass(
-            zbuf, ok & (bb >= 7) & (bb < base - 1), mid_cap,
-            lambda zb, fs, os_: _raster_tiled(uvz, fs, os_, height, width,
-                                              zb, ts=base, chunk=8192)[0])
+    # mid class through the tiled pass too (compacted + gated); overflow
+    # beyond the cap spills to the scatter ladder like any other class
+    mid_cap = min(f.shape[0], mid_capacity)
+    zbuf, spill_mid = gated_pass(
+        zbuf, ok & (bb >= 7) & (bb < base - 1), mid_cap,
+        lambda zb, fs, os_: _raster_tiled(uvz, fs, os_, height, width,
+                                          zb, ts=base, chunk=8192)[0])
 
     ladder = []
     t = 2 * base

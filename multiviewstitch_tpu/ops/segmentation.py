@@ -3,7 +3,7 @@
 The reference optionally runs cv::grabCut at half resolution with a margin
 rectangle as the foreground prior (Image3D.cpp:23-51, gated by ``Segment``)
 to mask background pixels before feature detection. GrabCut's iterated
-graph cut is host-serial and needs OpenCV; the TPU-native stand-in keeps
+graph cut is host-serial and needs OpenCV; the jitted stand-in keeps
 the same contract — [H,W] boolean foreground mask from an RGB/gray image +
 margin rectangle — using a jitted color-model EM over the rectangle prior:
 
@@ -123,7 +123,7 @@ def trim_mesh_by_all_cameras(vertices, faces, normals, transforms,
     for T, cams in zip(transforms, sequences_cams):
         inv = sim_inverse(T)
         pts = (jnp.asarray(inv.s) *
-               jnp.einsum("ij,nj->ni", inv.R, v) + inv.t)
+               jnp.einsum("ij,nj->ni", inv.R, v, precision="highest") + inv.t)
         camsE = CameraBatch(cams.K[:, None], cams.R[:, None],
                             cams.t[:, None], cams.width, cams.height)
         uv, z = project(camsE, pts[None])

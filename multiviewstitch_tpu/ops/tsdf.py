@@ -4,13 +4,13 @@ The reference's Poisson surface reconstruction lives in the closed-source
 ``ZJU::GeoRec`` binary (GeometryRec::RunPoisson, Reconstruction/
 GeometryRec.cpp:61-86; octree depth ``psn_dpt_min..max`` from
 config.txt:33-34) — no source exists, so the new framework builds a
-functionally equivalent TPU-native reconstructor (SURVEY §7 'hard parts' #1):
+functionally equivalent reconstructor in JAX (SURVEY §7 'hard parts' #1):
 
   1. **Projective TSDF fusion** over a regular voxel grid: every voxel
      projects into every depth frame; signed distance = (frame depth at the
      pixel) − (voxel camera depth), truncated to ±trunc and averaged over
      frames with valid observations (the KinectFusion formulation — dense,
-     batched, MXU/VPU-friendly; one fused jit).
+     batched; one fused jit).
   2. **Surface nets** extraction: one vertex per sign-change voxel cell
      (centroid of edge zero-crossings), two triangles per grid face with a
      sign change along its dual edge. Static-capacity compaction like
@@ -168,10 +168,10 @@ def surface_nets(tsdf: TSDF, *, max_vertices: int = 65536,
     # independently, and XLA gives no cross-scatter duplicate-resolution
     # guarantee — a clamped slot could mix x/y/z from different cells
     tgt = jnp.where(flat_surf & (ids < max_vertices), ids, max_vertices)
-    # Column-wise scatters: a [G^3,3] operand tiles to T(8,128) on TPU,
-    # padding the minor dim 3 -> 128 lanes (42x HBM expansion; the
-    # whole-volume face list at G=256 requested 51.5 GB). Flat [G^3]
-    # columns pad only to the lane boundary.
+    # Column-wise scatters, one flat [G^3] column per coordinate, in place
+    # of one [G^3,3] scatter whose 3-wide minor dim padded badly under an
+    # earlier accelerator's tiled layouts (ROADMAP: re-measure the plain
+    # form on the GPU).
     verts = jnp.stack(
         [jnp.zeros((max_vertices,), jnp.float32).at[tgt].set(
             world[..., k].reshape(-1), mode="drop") for k in range(3)], -1)

@@ -182,7 +182,8 @@ def _solve_blocks_impl(prob: ARAPBlockProblem, *, mesh: Mesh,
             # global step rhs: averaged endpoint rotations on rest edges
             Re = ext(R.reshape(B, 9)).reshape(-1, 3, 3)
             Rij = 0.5 * (Re[ei] + Re[ej])
-            rot_gd = w[:, None] * jnp.einsum("eab,eb->ea", Rij, gd)
+            rot_gd = w[:, None] * jnp.einsum("eab,eb->ea", Rij, gd,
+                                             precision="highest")
             b = edge_sum(rot_gd, -rot_gd)
             b = b - lap(jnp.where(con[:, None], p, 0.0))
             b = jnp.where(free[:, None], b, 0.0)

@@ -85,7 +85,8 @@ def arap_solve_sharded(prob: ARAPProblem, *, mesh: Mesh,
 
             # global: rhs from rotated rest edges
             Rij = 0.5 * (R[i] + R[j])
-            rot_gd = w[:, None] * jnp.einsum("eab,eb->ea", Rij, gd)
+            rot_gd = w[:, None] * jnp.einsum("eab,eb->ea", Rij, gd,
+                                             precision="highest")
             b = edge_sum3(rot_gd, -rot_gd)
             b = b - lap(jnp.where(constrained[:, None], p, 0.0))
             b = jnp.where(free_l[:, None], b, 0.0)

@@ -1,7 +1,7 @@
 """Device-mesh setup and sharding helpers.
 
 The reference is single-process/single-thread (SURVEY §2 'Parallelism...
-none'); this module provides the TPU-native scaling substrate required by
+none'); this module provides the scaling substrate required by
 BASELINE configs 4-5: a jax.sharding.Mesh over the chips of one or more
 hosts, with named axes for the framework's parallel dimensions:
 

@@ -103,8 +103,8 @@ def render_stage(model_vertices: np.ndarray,
     for k, cams in enumerate(sequences_cams):
         inv = sim_inverse(transforms[k])
         pts = np.asarray(jnp.einsum(
-            "ij,nj->ni", inv.R, jnp.asarray(model_vertices)) *
-            jnp.asarray(inv.s) + inv.t)
+            "ij,nj->ni", inv.R, jnp.asarray(model_vertices),
+            precision="highest") * jnp.asarray(inv.s) + inv.t)
         fmask = jnp.ones(len(model_faces), bool)
         disp = np.asarray(render_sequence(
             jnp.asarray(pts, jnp.float32), jnp.asarray(model_faces), fmask,

@@ -5,7 +5,7 @@ overlap depth-consistency / matching / solve stages across a sequence
 stream (double-buffered host->device feeds). The reference runs every
 stage strictly serially on one thread (AlignmentSeq, Processor.cpp:835-1106).
 
-On TPU the device side is already asynchronous (XLA dispatch returns
+The device side is already asynchronous (XLA dispatch returns
 before execution finishes), so the serial bottleneck is HOST work: disk
 ingest (raw/jpg decode), numpy assembly, artifact writes. ``prefetch_map``
 runs the producer for item i+1..i+depth on worker threads while the caller

@@ -257,3 +257,91 @@ def shade_views(scene: Scene, light=(0.4, 0.7, 0.2)) -> np.ndarray:
         img = np.where(np.asarray(valid).reshape(-1), 0.2 + 0.8 * shade, 0.0)
         imgs.append(img.reshape(h, w))
     return np.stack(imgs).astype(np.float32)
+
+
+def _e2e_config():
+    from ..config import StitchConfig
+    return StitchConfig().replace(
+        view_count=1, min_match_count=7, iter_num=256, sample_interval=4,
+        ssd_win=3, ssd_err=40.0, reproj_err=4, pixel_err=12.0,
+        adapt_pixel_err_ratio=0.6, distmax=0.7, ratiomax=0.8,
+        hl_margin_ratio=0.02, hr_margin_ratio=0.02, vl_margin_ratio=0.02,
+        vr_margin_ratio=0.02, min_dsp=1e-3, max_dsp=10.0,
+        max_keypoints=256, nbr_frm_num=1, conf_min=0.5, dsp_err=0.05)
+
+
+# the StitchConfig the two-sequence fixture is aligned with (BASELINE
+# configs 1-2; benchmarks raise max_keypoints to 512)
+E2E_CONFIG = _e2e_config()
+
+
+def build_two_sequences(n_frames: int = 4, width: int = 128,
+                        height: int = 96):
+    """Two sequences of the same bumpy sphere related by a known similarity
+    (BASELINE config 1; config 2 at 5 VGA frames). Returns
+    (seq1, seq2, gt, base_scene, moved_scene)."""
+    from .align_seq import Sequence
+    gt = Similarity(jnp.asarray(1.3, jnp.float32),
+                    jnp.asarray(np.array(
+                        [[0.9689124, 0.0, 0.24740396],
+                         [0.0, 1.0, 0.0],
+                         [-0.24740396, 0.0, 0.9689124]], np.float32)),
+                    jnp.asarray([0.15, -0.1, 0.2], jnp.float32))
+    # video-like 15 deg inter-frame baselines (partial arc) — the regime the
+    # reference's consistency / agreement tests are designed for
+    base = make_scene(n_frames=n_frames, width=width, height=height,
+                      bumps=0.15, n_lat=64, n_lon=96, arc_deg=45.0)
+    moved = make_scene(n_frames=n_frames, width=width, height=height,
+                       bumps=0.15, n_lat=64, n_lon=96, transform=gt,
+                       arc_deg=45.0)
+    seq1 = Sequence(jnp.asarray(textured_views(base)),
+                    jnp.asarray(base.disparity), base.cams)
+    seq2 = Sequence(jnp.asarray(textured_views(moved)),
+                    jnp.asarray(moved.disparity), moved.cams)
+    return seq1, seq2, gt, base, moved
+
+
+def synth_ba_problem(n_cams=6, n_pts=60, noise_px=0.0, pose_noise=0.0,
+                     pt_noise=0.0, seed=0, ang_step=0.08, t_step=0.15):
+    """Cameras on an arc (``ang_step`` rad and ``t_step`` apart) looking at
+    a point cloud; observations = exact projections (+noise). Returns
+    (problem, gt_state, init_state)."""
+    from ..solvers import ba
+    rng = np.random.default_rng(seed)
+    K = np.array([[200.0, 0, 120.0], [0, 200.0, 90.0], [0, 0, 1]],
+                 np.float32)
+    pts = rng.uniform(-0.5, 0.5, size=(n_pts, 3)).astype(np.float32)
+    pts[:, 2] += 4.0
+
+    rvecs, tvecs = [], []
+    for i in range(n_cams):
+        ang = (i - n_cams / 2) * ang_step
+        rvecs.append(np.array([0.0, ang, 0.0], np.float32))
+        tvecs.append(np.array([t_step * i, 0.0, 0.2 * abs(ang)], np.float32))
+    rvec = np.stack(rvecs)
+    tvec = np.stack(tvecs)
+
+    cam_idx, pt_idx, uvs = [], [], []
+    for c in range(n_cams):
+        R = np.asarray(ba.rodrigues(jnp.asarray(rvec[c])))
+        pc = (R @ pts.T).T + tvec[c]
+        uv = np.stack([K[0, 0] * pc[:, 0] / pc[:, 2] + K[0, 2],
+                       K[1, 1] * pc[:, 1] / pc[:, 2] + K[1, 2]], -1)
+        inb = ((uv[:, 0] > 0) & (uv[:, 0] < 240) &
+               (uv[:, 1] > 0) & (uv[:, 1] < 180))
+        for p in np.nonzero(inb)[0]:
+            cam_idx.append(c)
+            pt_idx.append(p)
+            uvs.append(uv[p] + rng.normal(size=2) * noise_px)
+
+    prob = ba.make_problem(K, cam_idx, pt_idx, np.asarray(uvs), n_pts,
+                           max_obs_per_point=n_cams, n_cams=n_cams)
+    gt = ba.BAState(jnp.asarray(rvec), jnp.asarray(tvec), jnp.asarray(pts))
+    init = ba.BAState(
+        jnp.asarray(rvec + rng.normal(size=rvec.shape).astype(np.float32)
+                    * pose_noise),
+        jnp.asarray(tvec + rng.normal(size=tvec.shape).astype(np.float32)
+                    * pose_noise * 3),
+        jnp.asarray(pts + rng.normal(size=pts.shape).astype(np.float32)
+                    * pt_noise))
+    return prob, gt, init

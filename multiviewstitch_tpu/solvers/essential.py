@@ -30,12 +30,12 @@ def _eight_point(y1, y2):
     E = Vt[8].reshape(3, 3)
     U, s, Vt2 = jnp.linalg.svd(E)
     S = jnp.asarray([1.0, 1.0, 0.0], E.dtype)    # reference forces (1,1,0)
-    return (U * S[None, :]) @ Vt2
+    return jnp.matmul(U * S[None, :], Vt2, precision="highest")
 
 
 def _epipolar_err(E, y1, y2):
     """|y2^T E y1| per match (algebraic error, Processor.cpp:330)."""
-    return jnp.abs(jnp.einsum("ni,ij,nj->n", y2, E, y1))
+    return jnp.abs(jnp.einsum("ni,ij,nj->n", y2, E, y1, precision="highest"))
 
 
 @partial(jax.jit, static_argnames=("iters", "score"))
@@ -75,7 +75,8 @@ def remove_outliers_essential(
         def cov_area(uv):
             c = (uv * w[:, None]).sum(0) / n
             d = (uv - c) * w[:, None]
-            C = d.T @ d / jnp.maximum(n - 1, 1)
+            C = jnp.matmul(d.T, d, precision="highest") / jnp.maximum(
+                n - 1, 1)
             return jnp.sqrt(jnp.maximum(jnp.linalg.det(C), 0.0))
 
         a1 = cov_area(uv1)

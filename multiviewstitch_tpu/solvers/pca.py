@@ -39,7 +39,7 @@ def pivots(points, mask=None):
         n = jnp.maximum(mask.sum(-1), 1.0)
     else:
         n = points.shape[-2]
-    cov = jnp.einsum("...ni,...nj->...ij", d, d) / n
+    cov = jnp.einsum("...ni,...nj->...ij", d, d, precision="highest") / n
     w, v = jnp.linalg.eigh(cov)            # ascending
     order = jnp.argsort(-w, axis=-1)
     v = jnp.take_along_axis(v, order[..., None, :], axis=-1)
@@ -51,7 +51,7 @@ def extent_along(points, axis_vec, center, mask=None):
     """Signed extent range (min,max) of projections t = axis.(p-c)/|axis|^2,
     the reference's scale measurement (Alignment.cpp:281-296)."""
     t = jnp.einsum("...ni,...i->...n", points - center[..., None, :],
-                   axis_vec) / jnp.maximum(
+                   axis_vec, precision="highest") / jnp.maximum(
         jnp.sum(axis_vec * axis_vec, -1), 1e-12)[..., None]
     if mask is None:
         return t.min(-1), t.max(-1), t
@@ -64,7 +64,7 @@ def plane_fit(points):
     """LS plane through points via the reference's normal-equation form
     (Alignment.cpp:148-161): solve A x = -b with A = sum p p^T, b = sum p;
     returns (unit normal, d) with plane n.x + d = 0."""
-    A = jnp.einsum("ni,nj->ij", points, points)
+    A = jnp.einsum("ni,nj->ij", points, points, precision="highest")
     b = points.sum(0)
     ans = -jnp.linalg.solve(A, b)
     norm = jnp.linalg.norm(ans)

@@ -76,9 +76,11 @@ def _residuals(params, data: PoseGraphData, delta=None):
     s, R, t = _params_to_sim(params)
     sk, sl = data.seq_k, data.seq_l
     Tp = (s[sk][:, None, None] *
-          jnp.einsum("eij,emj->emi", R[sk], data.p) + t[sk][:, None, :])
+          jnp.einsum("eij,emj->emi", R[sk], data.p,
+                     precision="highest") + t[sk][:, None, :])
     Tq = (s[sl][:, None, None] *
-          jnp.einsum("eij,emj->emi", R[sl], data.q) + t[sl][:, None, :])
+          jnp.einsum("eij,emj->emi", R[sl], data.q,
+                     precision="highest") + t[sl][:, None, :])
     r = (Tp - Tq) * data.mask[..., None]
     if delta is not None:
         n = jnp.linalg.norm(r, axis=-1)
@@ -99,8 +101,8 @@ def _gn_step(params, data: PoseGraphData, lam, delta, *, num_seqs: int):
     # gauge: last sequence fixed -> zero its columns
     free = jnp.ones((num_seqs, 7)).at[num_seqs - 1].set(0.0).reshape(-1)
     J = J * free[None, :]
-    H = J.T @ J + lam * jnp.eye(J.shape[1])
-    g = J.T @ r
+    H = jnp.matmul(J.T, J, precision="highest") + lam * jnp.eye(J.shape[1])
+    g = jnp.matmul(J.T, r, precision="highest")
     delta = jnp.linalg.solve(H, -g) * free
     return (flat + delta).reshape(num_seqs, 7), (r ** 2).sum()
 

@@ -99,17 +99,19 @@ def kabsch_rt(p1, p2, weights, scale) -> Tuple[jnp.ndarray, jnp.ndarray]:
     X = (p1 - c1) * jnp.asarray(scale)[..., None, None]
     Y = p2 - c2
     # full f32 accumulation: the covariance reduction spans every point, and
-    # the TPU default (bf16 operands) loses enough bits to deorthogonalize R
+    # reduced-precision operands (bf16/TF32) lose enough bits to
+    # deorthogonalize R
     S = jnp.einsum("...ni,...nj->...ij", X * w, Y,
                    precision=jax.lax.Precision.HIGHEST)
     U, _, Vt = jnp.linalg.svd(S)
     V = jnp.swapaxes(Vt, -1, -2)
-    det = jnp.linalg.det(jnp.einsum("...ij,...kj->...ik", V, U))
+    det = jnp.linalg.det(jnp.einsum("...ij,...kj->...ik", V, U,
+                                    precision="highest"))
     D = jnp.stack([jnp.ones_like(det), jnp.ones_like(det), det], -1)
-    R = jnp.einsum("...ij,...j,...kj->...ik", V, D, U)
+    R = jnp.einsum("...ij,...j,...kj->...ik", V, D, U, precision="highest")
     t = (c2[..., 0, :] -
          jnp.asarray(scale)[..., None] *
-         jnp.einsum("...ij,...j->...i", R, c1[..., 0, :]))
+         jnp.einsum("...ij,...j->...i", R, c1[..., 0, :], precision="highest"))
     return R, t
 
 
@@ -122,14 +124,15 @@ def residual_error(T: Similarity, p1, p2, mask, cam1: CameraBatch,
     """Symmetric mean pixel reprojection error (SRTSolver.cpp:6-29).
     T batch dims broadcast; returns error per batch element."""
     fwd = (jnp.asarray(T.s)[..., None, None] *
-           jnp.einsum("...ij,...nj->...ni", T.R, p1) + T.t[..., None, :])
+           jnp.einsum("...ij,...nj->...ni", T.R, p1,
+                      precision="highest") + T.t[..., None, :])
     uv_f, _ = project(cam2, fwd)
     uv_2, _ = project(cam2, p2)
     e1 = jnp.linalg.norm(_round_px(uv_f) - _round_px(uv_2), axis=-1)
 
     inv_s = 1.0 / jnp.asarray(T.s)
     bwd = inv_s[..., None, None] * jnp.einsum(
-        "...ji,...nj->...ni", T.R, p2 - T.t[..., None, :])
+        "...ji,...nj->...ni", T.R, p2 - T.t[..., None, :], precision="highest")
     uv_b, _ = project(cam1, bwd)
     uv_1, _ = project(cam1, p1)
     e2 = jnp.linalg.norm(_round_px(uv_b) - _round_px(uv_1), axis=-1)
@@ -139,11 +142,12 @@ def residual_error(T: Similarity, p1, p2, mask, cam1: CameraBatch,
 def per_match_errors(T: Similarity, p1, p2, cam1, cam2):
     """Both directional pixel errors per match (for outlier pruning,
     Processor.cpp:210-239). Returns (err_fwd [M], err_bwd [M])."""
-    fwd = T.s * jnp.einsum("ij,nj->ni", T.R, p1) + T.t
+    fwd = T.s * jnp.einsum("ij,nj->ni", T.R, p1, precision="highest") + T.t
     uv_f, _ = project(cam2, fwd)
     uv_2, _ = project(cam2, p2)
     e1 = jnp.linalg.norm(_round_px(uv_f) - _round_px(uv_2), axis=-1)
-    bwd = (1.0 / T.s) * jnp.einsum("ji,nj->ni", T.R, p2 - T.t)
+    bwd = (1.0 / T.s) * jnp.einsum("ji,nj->ni", T.R, p2 - T.t,
+                                   precision="highest")
     uv_b, _ = project(cam1, bwd)
     uv_1, _ = project(cam1, p1)
     e2 = jnp.linalg.norm(_round_px(uv_b) - _round_px(uv_1), axis=-1)
@@ -204,12 +208,14 @@ def estimate_srt_ransac(
 def _per_match_errors_batched(Ts: Similarity, p1, p2, cam1, cam2):
     """per_match_errors over a batch of hypotheses: ([K,M], [K,M])."""
     s = jnp.asarray(Ts.s)[..., None, None]
-    fwd = s * jnp.einsum("...ij,nj->...ni", Ts.R, p1) + Ts.t[..., None, :]
+    fwd = s * jnp.einsum("...ij,nj->...ni", Ts.R, p1,
+                         precision="highest") + Ts.t[..., None, :]
     uv_f, _ = project(cam2, fwd)
     uv_2, _ = project(cam2, p2)
     e1 = jnp.linalg.norm(_round_px(uv_f) - _round_px(uv_2)[None], axis=-1)
     bwd = (1.0 / s) * jnp.einsum("...ji,...nj->...ni", Ts.R,
-                                 p2[None] - Ts.t[..., None, :])
+                                 p2[None] - Ts.t[..., None, :],
+                                 precision="highest")
     uv_b, _ = project(cam1, bwd)
     uv_1, _ = project(cam1, p1)
     e2 = jnp.linalg.norm(_round_px(uv_b) - _round_px(uv_1)[None], axis=-1)

@@ -2,7 +2,7 @@
 
 SURVEY §5.2-5.3: the reference has no sanitizers and fails hard
 (exit(-1) everywhere, e.g. ParamParser.cpp:50, Processor.cpp:798-799).
-TPU-native equivalents:
+JAX equivalents:
 
   - ``debug_numerics()``: a context manager enabling jax_debug_nans /
     jax_debug_infs (traced NaN/Inf checks inside jit) plus highest matmul
@@ -30,7 +30,7 @@ import jax
 log = logging.getLogger("mvs")
 
 # error signatures considered transient (worth a retry): device resets,
-# RPC/tunnel drops, allocator pressure
+# RPC drops, allocator pressure
 _TRANSIENT = ("RESOURCE_EXHAUSTED", "UNAVAILABLE", "DEADLINE_EXCEEDED",
               "ABORTED", "preempt", "connection reset", "socket closed")
 

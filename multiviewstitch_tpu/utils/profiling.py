@@ -53,3 +53,10 @@ def compiled_flops(fn: Callable, *args) -> Optional[float]:
         return float(c.cost_analysis().get("flops", 0.0))
     except Exception:
         return None
+
+
+def device_info() -> dict:
+    """The device a measurement ran on, as JAX reports it."""
+    d = jax.devices()
+    return {"platform": d[0].platform, "kind": d[0].device_kind,
+            "count": len(d)}

@@ -1,6 +1,7 @@
 #!/bin/sh
-# Build the native IO runtime -> native/libmvs_io.so
+# Build the native IO runtime -> native/libmvs_io.so (or the path in $1)
 set -e
 cd "$(dirname "$0")"
-g++ -O3 -march=native -shared -fPIC -pthread -o libmvs_io.so mvs_io.cpp
-echo "built $(pwd)/libmvs_io.so"
+OUT="${1:-libmvs_io.so}"
+g++ -O3 -march=native -shared -fPIC -pthread -o "$OUT" mvs_io.cpp
+echo "built $OUT"

@@ -3,7 +3,7 @@
 // The reference's runtime is single-threaded C++ file IO threaded through
 // the pipeline (LoadDepth/SaveDepth Common/Utils.h:166-186, the .npts
 // reader Processor.cpp:952-964, the OBJ reader PlyObj.cpp:29-75). This
-// library is its TPU-era equivalent: a small C ABI (ctypes-friendly)
+// library is its equivalent here: a small C ABI (ctypes-friendly)
 // providing multi-threaded batch loaders that feed host buffers ready for
 // jax.device_put, so input IO overlaps and never serializes the device.
 //

@@ -2,9 +2,8 @@
 
 The heavier align/e2e tests are marked slow; this file stays UNMARKED so
 the quick loop (`pytest -m 'not slow'`) still exercises the
-lax.map-over-frames `_prep_sequence_views` structure (the code path the
-round-3 OOM fix and the round-4 window-only sampling changed) at a tiny
-shape (advisor round-3 item 2)."""
+`_prep_sequence_views` structure (vmapped view synthesis + batched
+detection) at a tiny shape."""
 
 import numpy as np
 import jax.numpy as jnp

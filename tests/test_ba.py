@@ -3,50 +3,7 @@ import jax.numpy as jnp
 import pytest
 
 from multiviewstitch_tpu.solvers import ba
-
-
-def synth_ba_problem(n_cams=6, n_pts=60, noise_px=0.0, pose_noise=0.0,
-                     pt_noise=0.0, seed=0):
-    """Cameras on an arc looking at a point cloud; observations = exact
-    projections (+noise). Returns (problem, gt_state, init_state)."""
-    rng = np.random.default_rng(seed)
-    K = np.array([[200.0, 0, 120.0], [0, 200.0, 90.0], [0, 0, 1]],
-                 np.float32)
-    pts = rng.uniform(-0.5, 0.5, size=(n_pts, 3)).astype(np.float32)
-    pts[:, 2] += 4.0
-
-    rvecs, tvecs = [], []
-    for i in range(n_cams):
-        ang = (i - n_cams / 2) * 0.08
-        rvecs.append(np.array([0.0, ang, 0.0], np.float32))
-        tvecs.append(np.array([0.15 * i, 0.0, 0.2 * abs(ang)], np.float32))
-    rvec = np.stack(rvecs)
-    tvec = np.stack(tvecs)
-
-    cam_idx, pt_idx, uvs = [], [], []
-    for c in range(n_cams):
-        R = np.asarray(ba.rodrigues(jnp.asarray(rvec[c])))
-        pc = (R @ pts.T).T + tvec[c]
-        uv = np.stack([K[0, 0] * pc[:, 0] / pc[:, 2] + K[0, 2],
-                       K[1, 1] * pc[:, 1] / pc[:, 2] + K[1, 2]], -1)
-        inb = ((uv[:, 0] > 0) & (uv[:, 0] < 240) &
-               (uv[:, 1] > 0) & (uv[:, 1] < 180))
-        for p in np.nonzero(inb)[0]:
-            cam_idx.append(c)
-            pt_idx.append(p)
-            uvs.append(uv[p] + rng.normal(size=2) * noise_px)
-
-    prob = ba.make_problem(K, cam_idx, pt_idx, np.asarray(uvs), n_pts,
-                           max_obs_per_point=n_cams, n_cams=n_cams)
-    gt = ba.BAState(jnp.asarray(rvec), jnp.asarray(tvec), jnp.asarray(pts))
-    init = ba.BAState(
-        jnp.asarray(rvec + rng.normal(size=rvec.shape).astype(np.float32)
-                    * pose_noise),
-        jnp.asarray(tvec + rng.normal(size=tvec.shape).astype(np.float32)
-                    * pose_noise * 3),
-        jnp.asarray(pts + rng.normal(size=pts.shape).astype(np.float32)
-                    * pt_noise))
-    return prob, gt, init
+from multiviewstitch_tpu.pipeline.fixtures import synth_ba_problem
 
 
 def test_rodrigues_matches_axis_angle():

@@ -1,4 +1,5 @@
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
 from multiviewstitch_tpu.ops.consistency import (check_consistency,
@@ -81,3 +82,161 @@ def test_stats():
                             reproj_err=4)
     s = consistency_stats(d, out, MIN_DSP, MAX_DSP)
     assert 0 < s["valid_after"] <= s["valid_before"] < 1
+
+
+# ---------------------------------------------------------------------------
+# per-pixel loop references (Processor.cpp:82-108 and the agreement vote of
+# ops/point_sampling.py), float64. A pixel whose reprojection lands within
+# EPS px of a .5 rounding boundary may legitimately round either way in
+# float32, so it is reported as ambiguous and left out of the comparison.
+# ---------------------------------------------------------------------------
+
+EPS = 1e-4
+
+
+def _near_half(x):
+    y = x + 0.5
+    return abs(y - np.floor(y + 0.5)) < EPS
+
+
+def _rig(cams):
+    return (np.asarray(cams.K, np.float64), np.asarray(cams.R, np.float64),
+            np.asarray(cams.t, np.float64))
+
+
+def _unproject(K, R, t, u, v, depth):
+    pc = np.array([(u - K[0, 2]) * depth / K[0, 0],
+                   (v - K[1, 2]) * depth / K[1, 1], depth])
+    return R.T @ (pc - t)
+
+
+def _project(K, R, t, pw):
+    pc = R @ pw + t
+    z = pc[2] if abs(pc[2]) >= 1e-12 else 1e-12
+    return K[0, 0] * pc[0] / z + K[0, 2], K[1, 1] * pc[1] / z + K[1, 2], pc[2]
+
+
+def _loop_consistency(disp, cams, offsets, reproj_err):
+    Ks, Rs, ts = _rig(cams)
+    n, h, w = disp.shape
+    keep = np.zeros(disp.shape, bool)
+    amb = np.zeros(disp.shape, bool)
+    for i in range(n):
+        for y in range(h):
+            for x in range(w):
+                d = float(disp[i, y, x])
+                if not MIN_DSP <= d <= MAX_DSP:
+                    continue
+                pw = _unproject(Ks[i], Rs[i], ts[i], x, y, 1.0 / d)
+                ok, near = True, False
+                for off in offsets:
+                    j = i + off
+                    if not 0 <= j < n:
+                        continue
+                    u, v, z = _project(Ks[j], Rs[j], ts[j], pw)
+                    near |= _near_half(u) or _near_half(v)
+                    ui, vi = np.floor(u + 0.5), np.floor(v + 0.5)
+                    if not (0 <= ui <= w - 1 and 0 <= vi <= h - 1 and z > 0):
+                        ok = False
+                        break
+                    dn = float(disp[j, int(vi), int(ui)])
+                    if not MIN_DSP <= dn <= MAX_DSP:
+                        ok = False
+                        break
+                    pn = _unproject(Ks[j], Rs[j], ts[j], ui, vi, 1.0 / dn)
+                    ub, vb, _ = _project(Ks[i], Rs[i], ts[i], pn)
+                    near |= _near_half(ub) or _near_half(vb)
+                    ib, jb = np.floor(ub + 0.5), np.floor(vb + 0.5)
+                    if not (0 <= ib <= w - 1 and 0 <= jb <= h - 1):
+                        ok = False
+                        break
+                    if (x - ib) ** 2 + (y - jb) ** 2 > reproj_err ** 2:
+                        ok = False
+                        break
+                keep[i, y, x] = ok
+                amb[i, y, x] = near
+    return keep, amb
+
+
+def _loop_votes(disp, cams, stride, nbr_num, dsp_err):
+    Ks, Rs, ts = _rig(cams)
+    n, h, w = disp.shape
+    ys, xs = range(0, h, stride), range(0, w, stride)
+    conf = np.ones((n, len(ys), len(xs)))
+    amb = np.zeros(conf.shape, bool)
+    for i in range(n):
+        for a, y in enumerate(ys):
+            for b, x in enumerate(xs):
+                d = float(disp[i, y, x])
+                if not MIN_DSP <= d <= MAX_DSP:
+                    continue
+                pw = _unproject(Ks[i], Rs[i], ts[i], x, y, 1.0 / d)
+                votes = exists = 0
+                for k in range(1, nbr_num + 1):
+                    for j in (i - k, i + k):
+                        if not 0 <= j < n:
+                            continue
+                        exists += 1
+                        u, v, z = _project(Ks[j], Rs[j], ts[j], pw)
+                        ui, vi = np.floor(u + 0.5), np.floor(v + 0.5)
+                        inb = (0 <= ui <= w - 1 and 0 <= vi <= h - 1 and
+                               z > 0)
+                        dn = float(disp[j, int(np.clip(vi, 0, h - 1)),
+                                        int(np.clip(ui, 0, w - 1))])
+                        dproj = 1.0 / z if z > 1e-12 else 0.0
+                        amb[i, a, b] |= (_near_half(u) or _near_half(v) or
+                                         abs(abs(dn - dproj) - dsp_err) < 1e-5)
+                        votes += (inb and abs(dn - dproj) <= dsp_err and
+                                  MIN_DSP <= dn <= MAX_DSP)
+                if exists:
+                    conf[i, a, b] = votes / exists
+    return conf, amb
+
+
+def _edge_scene(n_frames, width, height, seed):
+    """Close-up sphere that fills the frame, so reprojections leave the
+    image across every edge row and column; 5% of the pixels corrupted."""
+    scene = make_scene(n_frames=n_frames, width=width, height=height,
+                       bumps=0.15, n_lat=32, n_lon=48, arc_deg=40.0)
+    d = scene.disparity.copy()
+    rng = np.random.default_rng(seed)
+    d[rng.random(d.shape) < 0.05] *= 0.6
+    return d, scene.cams
+
+
+@pytest.mark.parametrize("n,h,w,offsets", [
+    (3, 24, 32, (-1, 1)),
+    (5, 20, 36, (-2, -1, 1, 2)),
+    (4, 17, 23, (-1, 1)),
+])
+def test_consistency_matches_pixel_loop(n, h, w, offsets):
+    disp, cams = _edge_scene(n, w, h, seed=n)
+    out = np.asarray(check_consistency(jnp.asarray(disp), cams,
+                                       min_dsp=MIN_DSP, max_dsp=MAX_DSP,
+                                       reproj_err=4, offsets=offsets))
+    keep, amb = _loop_consistency(disp, cams, offsets, 4)
+    assert keep.any() and (~keep & (disp > 0)).any()
+    assert not ((out > 0) != keep)[~amb].any()
+    np.testing.assert_array_equal(out[keep & ~amb], disp[keep & ~amb])
+
+
+@pytest.mark.parametrize("n,h,w,stride,nbr_num", [
+    (3, 24, 32, 2, 1),
+    (5, 20, 36, 2, 2),
+    (4, 17, 23, 3, 1),
+])
+def test_point_sampling_votes_match_pixel_loop(n, h, w, stride, nbr_num):
+    from multiviewstitch_tpu.ops.point_sampling import sample_oriented_points
+    disp, cams = _edge_scene(n, w, h, seed=10 + n)
+    op = sample_oriented_points(jnp.asarray(disp), cams, min_dsp=MIN_DSP,
+                                max_dsp=MAX_DSP, sample_radius=stride,
+                                nbr_num=nbr_num, nbr_step=1, dsp_err=0.01,
+                                conf_min=0.5)
+    conf, amb = _loop_votes(disp, cams, stride, nbr_num, 0.01)
+    valid = (disp >= MIN_DSP) & (disp <= MAX_DSP)
+    vs = valid[:, ::stride, ::stride].reshape(n, -1)
+    sel = vs & ~amb.reshape(n, -1)
+    got = np.asarray(op.conf)
+    np.testing.assert_allclose(got[sel], conf.reshape(n, -1)[sel], atol=1e-6)
+    assert 0 < conf.reshape(n, -1)[vs].mean() < 1
+    assert not (np.asarray(op.valid) & ~vs).any()

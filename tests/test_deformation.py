@@ -145,7 +145,7 @@ def _sphere_to_scan_rms(pts, scale):
 
 
 def test_arap_dense_matches_sparse(sphere):
-    """The dense-Laplacian CG path (one MXU matmul per iteration) is a
+    """The dense-Laplacian CG path (one matmul per iteration) is a
     drop-in numerical match for the edge-scatter matvec path."""
     v, f = sphere
     edges = D.mesh_edges(f)

@@ -9,42 +9,13 @@ import pytest
 from multiviewstitch_tpu.config import StitchConfig
 from multiviewstitch_tpu.core.transforms import (Similarity, apply_points,
                                                  inverse, compose)
-from multiviewstitch_tpu.pipeline.fixtures import make_scene, textured_views
-from multiviewstitch_tpu.pipeline.align_seq import (Sequence, align_sequences,
+from multiviewstitch_tpu.pipeline.fixtures import (
+    build_two_sequences, E2E_CONFIG as CFG)
+from multiviewstitch_tpu.pipeline.align_seq import (align_sequences,
                                                     fuse_sequences)
 from multiviewstitch_tpu.ops.point_sampling import sample_oriented_points
 
 pytestmark = pytest.mark.slow
-
-
-def build_two_sequences(n_frames=4, width=128, height=96):
-    gt = Similarity(jnp.asarray(1.3, jnp.float32),
-                    jnp.asarray(np.array(
-                        [[0.9689124, 0.0, 0.24740396],
-                         [0.0, 1.0, 0.0],
-                         [-0.24740396, 0.0, 0.9689124]], np.float32)),
-                    jnp.asarray([0.15, -0.1, 0.2], jnp.float32))
-    # video-like 15 deg inter-frame baselines (partial arc) — the regime the
-    # reference's consistency / agreement tests are designed for
-    base = make_scene(n_frames=n_frames, width=width, height=height,
-                      bumps=0.15, n_lat=64, n_lon=96, arc_deg=45.0)
-    moved = make_scene(n_frames=n_frames, width=width, height=height,
-                       bumps=0.15, n_lat=64, n_lon=96, transform=gt,
-                       arc_deg=45.0)
-    seq1 = Sequence(jnp.asarray(textured_views(base)),
-                    jnp.asarray(base.disparity), base.cams)
-    seq2 = Sequence(jnp.asarray(textured_views(moved)),
-                    jnp.asarray(moved.disparity), moved.cams)
-    return seq1, seq2, gt, base, moved
-
-
-CFG = StitchConfig().replace(
-    view_count=1, min_match_count=7, iter_num=256, sample_interval=4,
-    ssd_win=3, ssd_err=40.0, reproj_err=4, pixel_err=12.0,
-    adapt_pixel_err_ratio=0.6, distmax=0.7, ratiomax=0.8,
-    hl_margin_ratio=0.02, hr_margin_ratio=0.02, vl_margin_ratio=0.02,
-    vr_margin_ratio=0.02, min_dsp=1e-3, max_dsp=10.0,
-    max_keypoints=256, nbr_frm_num=1, conf_min=0.5, dsp_err=0.05)
 
 
 @pytest.fixture(scope="module")

@@ -196,11 +196,9 @@ def test_dog_scales_are_interpolated_off_grid():
 
 
 def test_sample_grad_patches_exact_mode_is_f32_exact():
-    """mode='exact' must return f32-exact bilinear taps of the atlas —
-    error within a few ulps of the tap magnitudes (FMA/association order
-    differs across backends), NOT the bf16 hi/lo split's ~2^-17 relative
-    error (round-5 advisor: the round-4 column-window rework silently
-    demoted 'exact'; restored via f32 HIGHEST selection)."""
+    """The gradient sampler must return f32-exact bilinear taps of the
+    atlas: error within a few ulps of the tap magnitudes (FMA/association
+    order differs across backends), far below any bf16 rounding."""
     import jax.numpy as jnp
     from multiviewstitch_tpu.ops.features import (_grad_pyramid,
                                                   _sample_grad_patches)
@@ -220,7 +218,7 @@ def test_sample_grad_patches_exact_mode_is_f32_exact():
     dx = jnp.asarray(rng.uniform(-8, 8, (K, S)), jnp.float32)
     dy = jnp.asarray(rng.uniform(-8, 8, (K, S)), jnp.float32)
     gx, gy = _sample_grad_patches(gx_atlas, gy_atlas, meta, lvl, uv,
-                                  dx, dy, mode="exact")
+                                  dx, dy)
 
     # NumPy oracle: f32 bilinear taps of the same atlas rows
     gxa = np.asarray(gx_atlas)
@@ -246,6 +244,6 @@ def test_sample_grad_patches_exact_mode_is_f32_exact():
                 taps = max(abs(atlas[o + y0, x0]), abs(atlas[o + y0, x0+1]),
                            abs(atlas[o + y0+1, x0]), abs(atlas[o + y0+1,
                                                                 x0+1]))
-                # 16 f32 ulps of the tap scale; split2's bf16 split sits
-                # ~64x above this bound (2^-17 vs 2^-24)
+                # 16 f32 ulps of the tap scale (bf16 rounding would sit
+                # >= 64x above this bound)
                 assert abs(got[i, s] - want) <= 1e-6 * max(taps, 1e-6)

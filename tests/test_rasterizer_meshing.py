@@ -1,4 +1,5 @@
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
 from multiviewstitch_tpu.core.cameras import CameraBatch, unproject_depth_map
@@ -366,80 +367,69 @@ def test_mid_class_capacity_spill_renders_exactly():
                                rtol=2e-5, atol=1e-7)
 
 
-def test_pallas_strip_raster_matches_xla_and_oracle():
-    """The round-5 Pallas VMEM-strip kernel (sorted candidates -> per-strip
-    (8,128) z-block, ops/pallas_raster.py) must agree with the XLA tile
-    passes AND the brute-force oracle on a mixed small/mid-class fixture
-    (interpret mode on CPU)."""
-    import jax.numpy as jnp
-    from multiviewstitch_tpu.core.cameras import CameraBatch
-    from multiviewstitch_tpu.ops.rasterizer import render_disparity
-
+def _mixed_small_mid_fixture():
+    """150 faces with bboxes from 1.5 to 13 px: the ts=8 tile pass, the
+    compacted mid-class pass and the first ladder rung all render."""
     rng = np.random.default_rng(11)
     w, h = 320, 240
-    fx = fy = 300.0
-    cx0, cy0 = (w - 1) / 2, (h - 1) / 2
     verts, faces = [], []
-    n = 150
-    for i in range(n):
+    for i in range(150):
         ox, oy = rng.uniform(5, w - 20), rng.uniform(5, h - 20)
-        z = 2.0 + i * 1e-3
         sz = rng.uniform(1.5, 13.0)
-        for (du, dv) in ((0, 0), (sz, rng.uniform(0, 2)),
-                         (rng.uniform(0, 2), sz)):
-            verts.append([(ox + du - cx0) / fx * z,
-                          (oy + dv - cy0) / fy * z, z])
+        verts += [(ox, oy, 2.0 + i * 1e-3),
+                  (ox + sz, oy + rng.uniform(0, 2), 2.0 + i * 1e-3),
+                  (ox + rng.uniform(0, 2), oy + sz, 2.0 + i * 1e-3)]
         faces.append([3 * i, 3 * i + 1, 3 * i + 2])
-    verts_np = np.asarray(verts, np.float32)
-    faces_np = np.asarray(faces, np.int32)
-    K = jnp.asarray([[fx, 0, cx0], [0, fy, cy0], [0, 0, 1]], jnp.float32)
-    cam = CameraBatch(K, jnp.eye(3), jnp.zeros(3), w, h)
-    mask = jnp.ones(n, bool)
-    d_x = render_disparity(jnp.asarray(verts_np), jnp.asarray(faces_np),
-                           mask, cam, height=h, width=w, impl="xla")
-    d_p = render_disparity(jnp.asarray(verts_np), jnp.asarray(faces_np),
-                           mask, cam, height=h, width=w, impl="pallas")
-    np.testing.assert_allclose(np.asarray(d_p.disparity),
-                               np.asarray(d_x.disparity), atol=2e-7)
-    ref = _oracle_raster(verts_np, faces_np, h, w, fx, fy, cx0, cy0)
-    np.testing.assert_allclose(np.asarray(d_p.disparity), ref,
-                               rtol=2e-5, atol=1e-7)
+    return verts, faces, w, h, 300.0
 
 
-def test_pallas_strip_raster_edge_strips_and_offscreen():
-    """Strip-boundary and image-edge behavior: faces straddling the 128-px
-    column-strip seam, the 8-row seam, partially offscreen faces, and a
-    non-multiple-of-8 image height must all match the XLA path."""
+def _edge_offscreen_fixture():
+    """Faces straddling 8/16-px tile seams, partially offscreen faces and
+    an image whose size is no multiple of the tile sizes."""
+    w, h = 200, 100
+    verts, faces = [], []
+    for i, (ox, oy) in enumerate([(124.0, 40.0), (60.0, 6.5), (-3.0, 50.0),
+                                  (193.0, 94.0), (100.0, -2.0)]):
+        verts += [(ox, oy, 2.0), (ox + 9.0, oy + 1.0, 2.0),
+                  (ox + 1.0, oy + 9.0, 2.0)]
+        faces.append([3 * i, 3 * i + 1, 3 * i + 2])
+    return verts, faces, w, h, 150.0
+
+
+def _giant_face_fixture():
+    """Close-up faces wider than 64 px next to small ones: the full-frame
+    pass of the rasterizer and the oracle's per-face path."""
+    w, h = 160, 120
+    verts = [(-20.3, -10.7, 1.5), (150.6, 5.2, 1.7), (10.4, 130.9, 1.6),
+             (40.3, 40.6, 1.2), (47.2, 41.1, 1.2), (41.1, 48.3, 1.2)]
+    return verts, [[0, 1, 2], [3, 4, 5]], w, h, 100.0
+
+
+@pytest.mark.parametrize("fixture", [_mixed_small_mid_fixture,
+                                     _edge_offscreen_fixture,
+                                     _giant_face_fixture])
+def test_xla_raster_matches_oracle(fixture):
+    """render_disparity against the brute-force z-buffer oracle."""
     import jax.numpy as jnp
     from multiviewstitch_tpu.core.cameras import CameraBatch
     from multiviewstitch_tpu.ops.rasterizer import render_disparity
 
-    w, h = 200, 100                      # 100 % 8 != 0, 200 % 128 != 0
-    fx = fy = 150.0
+    px_verts, faces, w, h, f = fixture()
     cx0, cy0 = (w - 1) / 2, (h - 1) / 2
-    z = 2.0
-    tris_px = [
-        (124.0, 40.0),                   # straddles col strip 0/1 seam
-        (60.0, 6.5),                     # straddles row strip seam
-        (-3.0, 50.0),                    # partially offscreen left
-        (193.0, 94.0),                   # bottom-right corner overhang
-        (100.0, -2.0),                   # top overhang
-    ]
-    verts, faces = [], []
-    for i, (ox, oy) in enumerate(tris_px):
-        for (du, dv) in ((0, 0), (9.0, 1.0), (1.0, 9.0)):
-            verts.append([(ox + du - cx0) / fx * z,
-                          (oy + dv - cy0) / fy * z, z])
-        faces.append([3 * i, 3 * i + 1, 3 * i + 2])
-    verts_np = np.asarray(verts, np.float32)
+    verts_np = np.asarray([[(u - cx0) / f * z, (v - cy0) / f * z, z]
+                           for u, v, z in px_verts], np.float32)
     faces_np = np.asarray(faces, np.int32)
-    K = jnp.asarray([[fx, 0, cx0], [0, fy, cy0], [0, 0, 1]], jnp.float32)
+    K = jnp.asarray([[f, 0, cx0], [0, f, cy0], [0, 0, 1]], jnp.float32)
     cam = CameraBatch(K, jnp.eye(3), jnp.zeros(3), w, h)
-    mask = jnp.ones(len(faces), bool)
-    d_x = render_disparity(jnp.asarray(verts_np), jnp.asarray(faces_np),
-                           mask, cam, height=h, width=w, impl="xla")
-    d_p = render_disparity(jnp.asarray(verts_np), jnp.asarray(faces_np),
-                           mask, cam, height=h, width=w, impl="pallas")
-    np.testing.assert_allclose(np.asarray(d_p.disparity),
-                               np.asarray(d_x.disparity), atol=2e-7)
-    assert (np.asarray(d_p.disparity) > 0).sum() > 100
+    out = render_disparity(jnp.asarray(verts_np), jnp.asarray(faces_np),
+                           jnp.ones(len(faces), bool), cam, height=h,
+                           width=w)
+    assert int(out.overflow) == 0
+    ref = _oracle_raster(verts_np, faces_np, h, w, f, f, cx0, cy0)
+    np.testing.assert_allclose(np.asarray(out.disparity), ref,
+                               rtol=2e-5, atol=1e-7)
+    assert (ref > 0).sum() > 100
+    # the vectorized oracle chip_smoke.py uses at VGA is the same oracle
+    from chip_smoke import zbuffer_oracle
+    np.testing.assert_array_equal(
+        zbuffer_oracle(verts_np, faces_np, h, w, f, f, cx0, cy0), ref)

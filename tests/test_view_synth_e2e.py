@@ -5,8 +5,8 @@ cross-sequence matching possible where raw views share too little
 appearance. This fixture PROVES the path does that: two sequences whose
 cameras differ by a 56 deg in-place yaw (wide FOV, so the yaw homography is
 a real perspective distortion, not a translation). 48 deg was enough in
-round 2; the round-3 SIFT rework (scale-matched pyramid sampling on the
-MXU) closed that gap with RAW views — correctly, to 0.65 deg — so the
+round 2; the round-3 SIFT rework (scale-matched pyramid sampling) closed
+that gap with RAW views — correctly, to 0.65 deg — so the
 negative case moved to 56 deg, where raw matching finds only 3 pairs:
 
   - view_count=1 must FAIL keyframe selection (too few surviving matches)
